@@ -14,7 +14,7 @@ silhouette visibility ratio (a score-function stand-in for the edge
 integral), which together pull a ~4.2-unit offset back to a fraction of
 a radius (gated by tests/test_diff.py::test_silhouette_recovers_sphere_position).
 
-Run (TPU ~minutes, CPU: lower --size/--spp/--steps):
+Run (GPU ~minutes, CPU: lower --size/--spp/--steps):
     python examples/inverse_render.py --steps 150 --out output/inverse
     python examples/inverse_render.py --mesh 8 --sample-parallel 2  # sharded
 """
@@ -54,18 +54,6 @@ def main() -> int:
     ap.add_argument("--trainable", default="sph_center,mat_albedo",
                     help="comma-separated param fields to optimize "
                          "(default recovers both positions and albedos)")
-    ap.add_argument("--engine", choices=("auto", "fused", "modular"),
-                    default="auto",
-                    help="fused = one-launch Pallas train step "
-                         "(ops/diffkernel*, ~100x the modular step on "
-                         "TPU); auto picks fused on TPU")
-    ap.add_argument("--grad-chunks", type=int, default=1,
-                    help="fused engine: median-of-N-chunks gradients. "
-                         "Default 1 (plain mean): the boundary signal "
-                         "lives in a few rays per step and the median "
-                         "rejects it along with the spikes (measured); "
-                         "spike robustness comes from adaptive_clip "
-                         "instead")
     args = ap.parse_args()
 
     import optax
@@ -155,12 +143,10 @@ def main() -> int:
         {k: ("geom" if k.startswith(("sph_", "quad_")) else "mat")
          for k in scene_params(scene)},
     )
-    fused = (args.engine == "fused"
-             or (args.engine == "auto"
-                 and jax.devices()[0].platform == "tpu"))
 
     def build_step(spp):
-        common = dict(
+        return inverse.make_train_step(
+            pert, camera, target,
             spp=spp,
             max_bounces=args.max_bounces,
             background=kw["background"],
@@ -169,20 +155,8 @@ def main() -> int:
             mesh=mesh,
             trainable=tuple(args.trainable.split(",")),
         )
-        if fused:
-            # One-launch fused kernel (same estimator/streams as the
-            # modular step); mesh shards pixel tiles + psums grad tables.
-            return inverse.make_fused_train_step(
-                pert, camera, target,
-                grad_chunks=(args.grad_chunks
-                             if spp % max(args.grad_chunks, 1) == 0
-                             else 1),
-                **common,
-            )
-        return inverse.make_train_step(pert, camera, target, **common)
 
     step, (params, opt_state) = build_step(args.spp)
-    print(f"engine: {'fused' if fused else 'modular'}")
 
     start = 0
     ckpt = args.checkpoint

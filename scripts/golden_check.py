@@ -8,7 +8,7 @@ The reference ships renders as de-facto golden artifacts (SURVEY.md §4):
   - raytracer/output/quad_test.png     five-quad scene 400x300, spp=10,
                                        mb=10 (hittable/quad.rs:98-151)
 
-  - /root/reference/output.png      RTiOW sphere+ground 400x225 under a
+  - output.png                         RTiOW sphere+ground 400x225 under a
                                        GRADIENT sky — unreproducible under
                                        the surveyed snapshot's own
                                        constant-background semantics
@@ -34,9 +34,10 @@ not bitwise: we compare gamma-encoded u8 images on
     geometry/camera misalignment immediately),
 with tolerances scaled to the golden's own per-pixel MC noise at its spp.
 
-Run:  python scripts/golden_check.py [--reps N] [--only NAME]
-Exit code 0 = all pass. Renders use the default Renderer (megakernel on
-TPU, modular elsewhere).
+Run:  python scripts/golden_check.py --reference DIR [--reps N] [--only NAME]
+(DIR: a checkout of the reference repository). Exit code 0 = all pass.
+Renders use the default Renderer (the megakernel on the GPU, the XLA
+wavefront elsewhere).
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-REF = "/root/reference"
-
 # (name, golden path, preset, width, height, spp, mb, mean_tol, block_tol)
 #
 # Cornell tolerance note: the scene's light quad is exactly coplanar with
@@ -60,16 +59,15 @@ REF = "/root/reference"
 # reference's BVH visit order (models/world.py) matches its tie semantics
 # and brings the mean gap from ~24 u8 down to ~3.6 u8; the residual is the
 # differing ulp statistics of the two implementations' t arithmetic (FMA
-# fusion on TPU vs separate rounding in Rust), which cannot close without
-# bit-level emulation. Tolerance is set just above that residual.
+# fusion on the accelerator vs separate rounding in Rust), which cannot
+# close without bit-level emulation. Tolerance is set just above that
+# residual.
 CONFIGS = [
     (
-        # mean tol 4.5: round-2 TPU measurement was [3.73 3.49 3.11]
-        # (GOLDEN_r02.md) against the prior 5.0 — tightened toward the
-        # measured residual per the round-1 verdict, keeping ~0.8 u8 of
-        # seed-to-seed headroom.
+        # mean tol 4.5: the measured residual was [3.73 3.49 3.11],
+        # leaving ~0.8 u8 of seed-to-seed headroom.
         "cornell300",
-        f"{REF}/output/output.png",
+        "output/output.png",
         "cornell_box", 300, 300, 300, 20,
         4.5, 14.0,
     ),
@@ -77,24 +75,24 @@ CONFIGS = [
         # The 1000x1000 Cornell artifact (SURVEY.md §6 "largest
         # checked-in render"); its spp is unrecorded — the binary's
         # default (300, src/main.rs:15-17) assumed, like rtiow_sky.
-        # Measured on v5e: mean diff [0.29 0.05 0.45], block p99 5.2 —
-        # MUCH tighter than cornell300: at 11x the pixel count the
-        # z-fight ulp statistics average out of the image mean, so the
-        # tolerance is set tight (strong regression value).
+        # Measured: mean diff [0.29 0.05 0.45], block p99 5.2 — MUCH
+        # tighter than cornell300: at 11x the pixel count the z-fight ulp
+        # statistics average out of the image mean, so the tolerance is
+        # set tight (strong regression value).
         "cornell1000",
-        f"{REF}/output/output_cornell_highres.png",
+        "output/output_cornell_highres.png",
         "cornell_box", 1000, 1000, 300, 20,
         1.5, 8.0,
     ),
     (
         "render_test",
-        f"{REF}/raytracer/output/render_test.png",
+        "raytracer/output/render_test.png",
         "three_spheres", 400, 300, 3, 10,
         4.0, 18.0,
     ),
     (
         "quad_test",
-        f"{REF}/raytracer/output/quad_test.png",
+        "raytracer/output/quad_test.png",
         "five_quads", 400, 300, 10, 10,
         3.0, 12.0,
     ),
@@ -102,11 +100,11 @@ CONFIGS = [
         # The artifact's spp/mb are unrecorded; RTiOW defaults (100, 50)
         # assumed. A wholly diffuse scene, so tolerances sit near the
         # other non-degenerate goldens'.
-        # Measured on v5e: mean diff [0.03 0.03 0.02], block p99 0.5 —
-        # a fully diffuse scene converges hard, so the tolerance is set
-        # tight (regression value).
+        # Measured: mean diff [0.03 0.03 0.02], block p99 0.5 — a fully
+        # diffuse scene converges hard, so the tolerance is set tight
+        # (regression value).
         "rtiow_sky",
-        f"{REF}/output.png",
+        "output.png",
         "rtiow_sky", 400, 225, 100, 50,
         1.0, 2.5,
     ),
@@ -137,12 +135,11 @@ def compare(name, golden_path, preset, width, height, spp, mb,
     independent seeds of it in u8 domain to shrink our side of the MC
     error while leaving the per-render distribution untouched.
     """
-    from PIL import Image as PILImage
-
     from tinyraytracer_tpu.models import presets
     from tinyraytracer_tpu.renderer import Renderer
+    from tinyraytracer_tpu.utils.image import read_png
 
-    golden = np.asarray(PILImage.open(golden_path)).astype(np.float64)
+    golden = read_png(golden_path)[..., :3].astype(np.float64)
     world, camera, kw = presets.PRESETS[preset](width=width, height=height)
     acc = None
     for k in range(reps):
@@ -174,20 +171,26 @@ def compare(name, golden_path, preset, width, height, spp, mb,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--reference", required=True,
+                    help="checkout of the reference repository (holds the "
+                         "golden renders)")
     ap.add_argument("--reps", type=int, default=3,
                     help="independent equal-spp renders averaged in u8 "
                          "domain (reduces our MC error without changing "
                          "the per-render noise distribution)")
     ap.add_argument("--only", default=None)
     ap.add_argument("--report", default=None,
-                    help="write a markdown PASS table here (e.g. GOLDEN_r02.md)")
+                    help="write a markdown PASS table here")
     args = ap.parse_args()
     ok = True
     rows = []
     for cfg in CONFIGS:
         if args.only and cfg[0] != args.only:
             continue
-        passed, detail = compare(*cfg, reps=args.reps)
+        name, rel_path, *rest = cfg
+        passed, detail = compare(
+            name, os.path.join(args.reference, rel_path), *rest,
+            reps=args.reps)
         ok &= passed
         rows.append((cfg[0], "PASS" if passed else "FAIL", detail))
     if args.report:
@@ -196,7 +199,7 @@ def main() -> int:
         lines = [
             "# Golden parity vs reference renders",
             "",
-            f"Device: {jax.devices()[0].platform}; equal-spp renders, "
+            f"Device: {jax.devices()[0].device_kind}; equal-spp renders, "
             f"{args.reps} seed reps averaged in u8 domain; statistical "
             "comparison (the reference RNG is unseedable — see "
             "scripts/golden_check.py).",

@@ -15,10 +15,9 @@ def test_cli_renders_png(tmp_path):
     ])
     assert rc == 0
     assert os.path.exists(out)
-    from PIL import Image as PILImage
-    import numpy as np
+    from tinyraytracer_tpu.utils.image import read_png
 
-    img = np.asarray(PILImage.open(out))
+    img = read_png(out)
     assert img.shape == (12, 16, 3)
     assert img.max() > 0
 

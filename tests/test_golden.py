@@ -1,9 +1,11 @@
 """Golden statistical parity vs the reference's checked-in renders.
 
-Runs the full configs only on TPU (CPU would take many minutes at these
-spp); on CPU a reduced-size smoke variant of the quad scene still guards
-the comparison machinery. See scripts/golden_check.py for the method and
-the Cornell z-fight tolerance rationale.
+The full configs run through scripts/golden_check.py on the GPU (CPU
+would take many minutes at these spp); here a reduced-size variant of the
+quad scene guards the comparison machinery. Both tests need the
+reference repository's renders: point RAYTRACER_REFERENCE_DIR at a
+checkout of it, or they skip. See scripts/golden_check.py for the method
+and the Cornell z-fight tolerance rationale.
 """
 
 import os
@@ -15,7 +17,7 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts"))
 
-REF = "/root/reference"
+REF = os.environ.get("RAYTRACER_REFERENCE_DIR", "")
 
 
 @pytest.mark.skipif(
@@ -26,15 +28,13 @@ REF = "/root/reference"
 def test_golden_quad_scene_small():
     """Block-mean agreement on a downscaled five-quad render: the golden is
     400x300; render at 200x150 and compare 2x-downsampled golden blocks."""
-    from PIL import Image as PILImage
-
     import golden_check as gc
     from tinyraytracer_tpu.models import presets
     from tinyraytracer_tpu.renderer import Renderer
+    from tinyraytracer_tpu.utils.image import read_png
 
-    golden = np.asarray(
-        PILImage.open(f"{REF}/raytracer/output/quad_test.png")
-    ).astype(np.float64)
+    golden = read_png(
+        f"{REF}/raytracer/output/quad_test.png")[..., :3].astype(np.float64)
     # 2x2 box-downsample the golden to 200x150
     golden_small = golden.reshape(150, 2, 200, 2, 3).mean(axis=(1, 3))
 
@@ -68,11 +68,10 @@ def test_golden_camera_sky_gradient():
     block max 0.40 at 25px blocks).
     """
     import jax.numpy as jnp
-    from PIL import Image as PILImage
 
     from tinyraytracer_tpu.models.camera import Camera
     from tinyraytracer_tpu.ops import rng
-    from tinyraytracer_tpu.utils.image import Image
+    from tinyraytracer_tpu.utils.image import Image, read_png
 
     w, h = 800, 450
     cam = Camera.new(1.0, 10.0, (0, 0, 0), (0, 0, 1), (0, 1, 0), 90.0, w, h)
@@ -88,9 +87,9 @@ def test_golden_camera_sky_gradient():
     col = ((1.0 - a)[:, None] * jnp.asarray([1.0, 1.0, 1.0])
            + a[:, None] * jnp.asarray([0.5, 0.7, 1.0]))
     ours = Image(np.asarray(col).reshape(h, w, 3)).to_u8().astype(np.float64)
-    golden = np.asarray(
-        PILImage.open(f"{REF}/raytracer/output/test_ray_image_generation.png")
-    ).astype(np.float64)
+    golden = read_png(
+        f"{REF}/raytracer/output/test_ray_image_generation.png"
+    )[..., :3].astype(np.float64)
     assert ours.shape == golden.shape
     mean_diff = np.abs(ours.mean(axis=(0, 1)) - golden.mean(axis=(0, 1)))
     assert mean_diff.max() < 0.2, mean_diff

@@ -3,6 +3,7 @@
 reference lacks (fast-vs-exact consistency, closest-hit selection,
 half-open bounds, normal orientation)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -136,7 +137,7 @@ def test_t_min_respected():
 
 
 def test_fast_matches_exact_oracle():
-    """The MXU-expanded sphere quadratic must agree with the reference-form
+    """The matmul-expanded sphere quadratic must agree with the reference-form
     oc = o - c oracle on a realistic batch."""
     rng = np.random.default_rng(0)
     spheres = [
@@ -154,6 +155,25 @@ def test_fast_matches_exact_oracle():
     np.testing.assert_allclose(
         np.asarray(fast.t)[m], np.asarray(oracle.t)[m], rtol=1e-4, atol=1e-4
     )
+
+
+def test_tangent_ray_gradient_is_finite():
+    """A ray exactly tangent to a sphere (discriminant == 0) still hits
+    at t = -half_b, and its gradient w.r.t. the sphere is finite:
+    sqrt'(0) is infinite, so the root contributes none. (At 300x300+
+    renders on the GPU one such ray NaN'd every sphere-center gradient.)"""
+    scene = _scene([Sphere((0.0, 0.0, -5.0), 1.0, "m")])
+    row = int(np.nonzero(np.asarray(scene.sph_valid))[0][0])
+    o, d = _rays(([1, 0, 0], [0, 0, -1]))
+
+    def t_of(center):
+        return isect.prim_t(scene.replace(sph_center=center), o, d,
+                            jnp.asarray([row]))[0]
+
+    assert float(t_of(scene.sph_center)) == 5.0
+    g = np.asarray(jax.grad(t_of)(scene.sph_center))
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(g[row], [0.0, 0.0, -1.0])
 
 
 def test_material_gather():
@@ -180,43 +200,32 @@ def test_empty_padding_never_hits():
 
 
 def test_compact_padding_inert_for_diagonal_rays():
-    """Regression: compacted pad-quad rows (corner at 1e30) could fake-hit
-    a ray with dx==dy==dz — fl(fl(1e30/dz)*dx) == 1e30 makes alpha/beta
-    cancel into [0,1). Pad rows now carry u = v = 0 (zero normal) and every
-    kernel guards |n.d| >= 1e-12, so they are deterministically inert."""
-    from tinyraytracer_tpu.ops.intersect_pallas import (
-        closest_hit_pallas,
-        compact_scene,
-    )
+    """Regression: a padded (invalid) quad row must never fake-hit a ray
+    with dx==dy==dz — fl(fl(1e30/dz)*dx) == 1e30 can make alpha/beta
+    cancel into [0,1). The dense oracle masks quad_valid directly; the
+    megakernel's host lowering drops invalid rows altogether."""
+    from tinyraytracer_tpu.ops.megakernel import compact_scene
 
-    # one real quad the diagonal rays miss -> 7 padded quad rows
+    # one real quad the diagonal rays miss -> padded invalid quad rows
     scene = _scene([Quad((100.0, -50.0, -50.0), (0, 1, 0), (0, 0, 1), "m")])
-    cs = compact_scene(scene)
+    assert not np.asarray(scene.quad_valid).all()
+    assert compact_scene(scene).n_quad == 1
     inv = 1.0 / np.sqrt(3.0)
     o = jnp.asarray([[0.25, 0.5, 0.75], [0.0, 0.0, 0.0]], jnp.float32)
     d = jnp.asarray([[inv, inv, inv], [inv, inv, inv]], jnp.float32)
-    t, j = closest_hit_pallas(cs, o, d, interpret=True)
-    assert (np.asarray(j) == -1).all(), (np.asarray(t), np.asarray(j))
-    # dense-path agreement (the oracle masks quad_valid directly)
     rec = isect.intersect_scene(scene, o, d)
     assert not np.asarray(rec.hit).any()
 
 
 def test_grazing_quad_ray_rejected_everywhere():
-    """|n.d| < 1e-12 is a miss in the dense oracle (quad_ts); the Pallas
-    selection kernel must agree instead of keeping a clamped, possibly
-    sign-flipped plane t."""
-    from tinyraytracer_tpu.ops.intersect_pallas import (
-        closest_hit_pallas,
-        compact_scene,
-    )
-
+    """|n.d| < 1e-12 is a miss in the dense oracle (quad_ts) rather than a
+    clamped, possibly sign-flipped plane t; the megakernel applies the
+    same guard."""
     scene = _scene([Quad((-1.0, 0.0, -1.0), (2, 0, 0), (0, 0, 2), "m")])
-    cs = compact_scene(scene)
     # ray in the quad's own plane (n = +y, d.n = 0), passing inside bounds
     o = jnp.asarray([[0.0, 0.0, 2.0]], jnp.float32)
     d = jnp.asarray([[0.0, 0.0, -1.0]], jnp.float32)
-    t, j = closest_hit_pallas(cs, o, d, interpret=True)
-    assert int(np.asarray(j)[0]) == -1
     rec = isect.intersect_scene(scene, o, d)
     assert not bool(np.asarray(rec.hit)[0])
+    t_sel, _ = isect.closest_select(scene, o, d, exact=True)
+    assert float(t_sel[0]) == float(isect.MISS_T)

@@ -115,7 +115,7 @@ def test_driver_entry_compiles():
 
 @pytest.mark.heavy
 def test_multiprocess_distributed_executes():
-    """VERDICT r4 #5: the REAL multi-process path. Spawns 2 processes x
+    """The REAL multi-process path. Spawns 2 processes x
     4 CPU devices under jax.distributed.initialize (coordinator +
     cross-process collectives), renders the sharded Cornell forward on
     the global 8-device mesh, and gates (inside the workers): tile mesh

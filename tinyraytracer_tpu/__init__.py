@@ -1,13 +1,14 @@
-"""tinyraytracer_tpu — a TPU-native differentiable Monte-Carlo path tracer.
+"""tinyraytracer_tpu — a differentiable Monte-Carlo path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 ``cheolwanpark/tiny-raytracer`` (Rust + Metal): thin-lens camera, sphere/quad
 geometry with composite groups, Lambertian/metal/dielectric/light materials,
 unidirectional path tracing with emission + background, BVH acceleration,
 gamma-2.2 PNG output — rebuilt as SoA scene pytrees, a masked wavefront
-bounce loop under ``lax.scan``/``lax.while_loop``, counter-based (hash) RNG,
-MXU-batched intersection, and mesh sharding via ``shard_map`` instead of
-worker threads. Fully differentiable: gradients flow from pixels to sphere
+bounce loop under ``lax.scan``/``lax.while_loop``, a fused GPU path-tracing
+kernel (Pallas lowered through Triton), counter-based (hash) RNG, batched
+intersection, and mesh sharding via ``shard_map`` instead of worker
+threads. Fully differentiable: gradients flow from pixels to sphere
 centers/radii, quad vectors, and material albedo/fuzz/IOR.
 
 Reference capability map (file:line cites are relative to the reference repo):
@@ -17,7 +18,7 @@ Reference capability map (file:line cites are relative to the reference repo):
   - renderer/*             -> renderer.Renderer, ops.trace
   - utils/image.rs         -> utils.image, ops.tonemap
   - utils/random.rs        -> ops.rng (counter-based, seedable, deterministic)
-  - sampler/metal/*        -> ops.intersect_pallas, ops.bvh (TPU-native accel)
+  - sampler/metal/*        -> ops.megakernel (fused GPU sampler), ops.bvh
 """
 
 from tinyraytracer_tpu.models.camera import Camera

@@ -22,7 +22,7 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="tinyraytracer_tpu",
-        description="TPU-native differentiable path tracer",
+        description="Differentiable path tracer in JAX",
     )
     ap.add_argument("--preset", default="cornell_box",
                     help="scene preset (see models/presets.py)")
@@ -39,8 +39,9 @@ def main(argv=None) -> int:
                     help="progress bar (the indicatif analog)")
     ap.add_argument("--accelerator", default="auto",
                     choices=("auto", "megakernel", "bvh", "none"),
-                    help="auto: megakernel on TPU, else modular (+BVH on "
-                         "large scenes); or force a specific path")
+                    help="auto: the fused megakernel on the GPU, the "
+                         "XLA wavefront (+BVH on large scenes) on the CPU; "
+                         "or force a specific path")
     ap.add_argument("--sample-parallel", type=int, default=1,
                     help="devices cooperating on the same pixels")
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -50,26 +51,9 @@ def main(argv=None) -> int:
 
     import jax
 
-    # Persistent compile cache (same as bench.py): repeat CLI renders of
-    # the same (scene class, size, spp) skip the 20-40s XLA/Mosaic
-    # compile — the reference binary's analog is its ahead-of-time
-    # metallib (build.rs). A repo checkout shares bench.py's .jax_cache;
-    # anything else (pip install into site-packages or a venv) uses the
-    # user cache dir instead of littering the install tree. "Checkout" is
-    # detected explicitly (.git / bench.py next to the package), not by
-    # parent-dir writability — a venv's site-packages is writable too.
-    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    is_checkout = os.path.isdir(os.path.join(repo_root, ".git")) or (
-        os.path.isfile(os.path.join(repo_root, "bench.py"))
-    )
-    if is_checkout and os.access(repo_root, os.W_OK):
-        cache_dir = os.path.join(repo_root, ".jax_cache")
-    else:
-        cache_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "tinyraytracer_tpu",
-            "jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
+    from tinyraytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from tinyraytracer_tpu.models import presets
     from tinyraytracer_tpu.renderer import Renderer

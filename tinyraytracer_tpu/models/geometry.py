@@ -3,8 +3,8 @@
 The reference represents geometry as boxed trait objects (hittable/sphere.rs,
 quad.rs) grouped by a missing-but-implied `HittableList` composite
 (src/main.rs:89-125). Here geometry objects are lightweight descriptions that
-World.build() lowers into SoA arrays — the TPU-native layout where a batch of
-rays intersects *all* primitives with dense vector math.
+World.build() lowers into SoA arrays — the accelerator layout where a batch
+of rays intersects *all* primitives with dense vector math.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Material model.
 
 The reference's four materials (material/lambertian.rs, metal.rs,
-dielectric.rs, light.rs) are trait objects dispatched per hit. On TPU,
+dielectric.rs, light.rs) are trait objects dispatched per hit. Here
 dynamic dispatch becomes a branchless select over a *material table*: every
 material is one row of a struct-of-arrays {kind, albedo, fuzz, ior, emission},
 and scatter evaluates all lobes then selects by kind (see ops/scatter.py).

@@ -3,7 +3,7 @@
 The reference World (hittable/world.rs:10-78) holds boxed trait objects and a
 named material registry. Here World is the same user-facing container, but
 `build()` lowers it to a `SceneArrays` pytree: padded struct-of-arrays that a
-whole batch of rays intersects with dense, MXU-friendly math. Primitive-count
+whole batch of rays intersects with dense, matmul-friendly math. Primitive-count
 padding keeps shapes static across scenes of similar size (one XLA compile
 per size class); padded slots are masked out with `*_valid`.
 """
@@ -26,9 +26,9 @@ from tinyraytracer_tpu.models.geometry import (
 )
 from tinyraytracer_tpu.models.materials import Material
 
-# Lane width of the TPU VPU: (rays, prims) buffers put the primitive axis on
-# lanes, so padding prim counts to 128 costs nothing the hardware wouldn't
-# already spend — and buys shape reuse across scenes.
+# Primitive counts pad to a multiple of 128 so scenes of similar size share
+# array shapes, and with them compiled programs (the jit caches key on
+# shapes); padded rows are invalid and never hit.
 _PRIM_PAD = 128
 _MAT_PAD = 8
 

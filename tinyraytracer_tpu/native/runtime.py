@@ -1,8 +1,8 @@
 """ctypes loader for the native C++ runtime library (libtinyrt.so).
 
 The reference's native layer is its Metal stack (accel-structure build,
-shader pipeline, buffer marshalling). The TPU-native equivalents that belong
-on the *host* side live here: the BVH flattening/build (the analog of
+shader pipeline, buffer marshalling). The equivalents that belong on the
+*host* side live here: the BVH flattening/build (the analog of
 MetalAccelerationStructure build+compact, accelstructure.rs:90-135) and PNG
 encoding (the analog of the `image` crate). Device compute is XLA/Pallas.
 

@@ -2,7 +2,7 @@
 //
 // The reference's native layer is its Metal stack: acceleration-structure
 // build + compaction (accelstructure.rs:90-135) and PNG output via the
-// `image` crate. The TPU framework's device compute is XLA/Pallas; the two
+// `image` crate. Device compute here is XLA/Pallas; the two
 // host-side hot paths live here:
 //
 //   tinyrt_bvh_build : threaded (hit-link/miss-link) BVH flattening — the

@@ -6,7 +6,7 @@ padded by 1e-4 total (aabb.rs:13-19) — and traverses it recursively with
 closest-hit range narrowing (bvh.rs:88-107). Its GPU path replaces this with
 Metal hardware acceleration structures (accelstructure.rs).
 
-TPU-native re-design:
+Re-design for a vectorized accelerator:
   - The *build* is host-side (numpy here; native/ has the C++ fast path),
     the analog of the Metal accel-structure build+compact — it happens once
     per scene, off the device.

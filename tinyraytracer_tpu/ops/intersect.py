@@ -2,13 +2,13 @@
 
 The reference intersects one ray against one primitive at a time through
 trait objects (hittable/sphere.rs:29-54, quad.rs:33-54) or Metal intersection
-functions (shader/geometry.metal:33-99). The TPU-native formulation
-intersects a batch of R rays against *all* N primitives at once:
+functions (shader/geometry.metal:33-99). This formulation intersects a
+batch of R rays against *all* N primitives at once:
 
-  - sphere quadratic terms d.c and o.c are (R,3)@(3,N) matmuls -> MXU;
+  - sphere quadratic terms d.c and o.c are (R,3)@(3,N) matmuls;
   - quad plane/planar-coordinate tests reduce to scalar triple products
     (p x v).w = p.(v x w), linear in p, so they are matmuls too;
-  - the closest-hit argmin is a lane reduction on the VPU.
+  - the closest-hit argmin is a reduction over the primitive axis.
 
 Semantics preserved from the reference:
   - t range is half-open [t_min, t_max) (Rust Range::contains);
@@ -27,9 +27,9 @@ import jax.numpy as jnp
 
 from tinyraytracer_tpu.models.world import SceneArrays
 
-# TPU MXU default matmul precision is bf16-class; the screening matmuls
-# feed winner selection where ulp-level ties (coplanar surfaces) matter,
-# so force full f32.
+# Accelerator default matmul precision may be reduced (bf16 passes, or TF32
+# on the GPU); the screening matmuls feed winner selection where ulp-level
+# ties (coplanar surfaces) matter, so force full f32.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -44,12 +44,11 @@ T_MIN = jnp.float32(1.0e-3)  # sampler/cpu.rs:48
 def take_rows(table, j):
     """Differentiable `table[j]` for (N,) / (N, K) tables, (R,) indices.
 
-    Forward is a plain gather (fast on TPU: measured 0.01 ms at R=360k).
-    The *transpose*, however, would be an R-update scatter-add, which
-    XLA:TPU compiles for minutes and runs ~serialized — so the backward is
-    written as a one-hot matmul instead: ct_table = onehot(j)ᵀ @ ct, an
-    (N,R)@(R,K) MXU reduction. The (N,R) one-hot puts R on the lane axis
-    (dense); exactness holds because every product is 1.0 * x.
+    Forward is a plain gather. The *transpose*, however, would be an
+    R-update scatter-add, which some XLA backends compile slowly and run
+    ~serialized — so the backward is written as a one-hot matmul instead:
+    ct_table = onehot(j)ᵀ @ ct, an (N,R)@(R,K) reduction with R the minor
+    axis; exactness holds because every product is 1.0 * x.
     """
     return jnp.take(table, j, axis=0)
 
@@ -109,8 +108,8 @@ def sphere_ts(scene: SceneArrays, o, d, t_min, t_max, exact: bool = False):
         half_b = jnp.einsum("rns,rs->rn", oc, d, precision=_HI)
         c_term = jnp.sum(oc * oc, axis=-1) - r[None, :] ** 2
     else:
-        d_dot_c = _mm(d, c.T)                        # (R,Ns) — MXU
-        o_dot_c = _mm(o, c.T)                        # (R,Ns) — MXU
+        d_dot_c = _mm(d, c.T)                        # (R,Ns) matmul
+        o_dot_c = _mm(o, c.T)                        # (R,Ns) matmul
         half_b = _dot(d, o)[:, None] - d_dot_c
         c_term = (
             _dot(o, o)[:, None] - 2.0 * o_dot_c + jnp.sum(c * c, axis=-1)[None, :]
@@ -150,7 +149,7 @@ def quad_ts(scene: SceneArrays, o, d, t_min, t_max):
     # beta = (u x p) . (n/nn) = p . (n x u) / nn
     b_vec = jnp.cross(n, u) * inv_nn[:, None]   # (Nq,3)
 
-    denom = _mm(d, n.T)                        # (R,Nq) — MXU
+    denom = _mm(d, n.T)                        # (R,Nq) matmul
     # Grazing rays (denom -> 0) give t -> inf; forward masking handles the
     # value, but d(t)/d(denom) = -num/denom^2 must stay finite or the
     # backward pass NaNs through the mask (0 * inf).
@@ -197,8 +196,13 @@ def prim_t(scene: SceneArrays, o, d, j, t_min=T_MIN, t_max=MISS_T):
     c_term = jnp.sum(oc * oc, axis=-1) - r * r
     disc = half_b * half_b - c_term
     has_root = disc >= 0.0
-    # NaN-safe backward: masked-out disc must stay finite under sqrt.
-    sqrtd = jnp.sqrt(jnp.where(has_root, jnp.maximum(disc, 0.0), 1.0))
+    # NaN-safe backward: sqrt'(0) is infinite, so a ray exactly tangent to
+    # the sphere (disc == 0, t = -half_b) takes no gradient through the
+    # root, and a masked-out disc < 0 stays finite under sqrt. One such
+    # ray would otherwise turn the whole gradient table into NaN through
+    # take_rows' one-hot reduction (0 * inf).
+    pos = disc > 0.0
+    sqrtd = jnp.where(pos, jnp.sqrt(jnp.where(pos, disc, 1.0)), 0.0)
     t0 = -half_b - sqrtd
     t1 = -half_b + sqrtd
     in0 = (t0 >= t_min) & (t0 < t_max)

@@ -3,8 +3,9 @@
 The reference uses an unseedable thread-local RNG (utils/random.rs:11-18),
 which makes renders non-deterministic. Here every random draw is a pure
 function of (seed, pixel_id, sample_id, stream): a PCG4D hash (Jarzynski &
-Olano, "Hash Functions for GPU Rendering", JCGT 2020). This is the TPU-native
-choice: fully vectorized u32 arithmetic on the VPU, no sequential state, and
+Olano, "Hash Functions for GPU Rendering", JCGT 2020): fully vectorized u32
+arithmetic, no sequential state (the same streams run inside the GPU
+megakernel, ops/megakernel.py), and
 *placement-invariant* — resharding rays across a device mesh can never change
 the image, because randomness depends only on logical ray coordinates.
 """
@@ -70,8 +71,9 @@ def uniform4(seed, pixel_id, sample_id, stream):
 def cbrt(x):
     """x^(1/3) for x >= 0 via exp(log(x)/3).
 
-    Chosen over jnp.cbrt so the Pallas megakernel (where Mosaic has no cbrt
-    primitive) and the modular path draw bit-identical scatter directions.
+    Chosen over jnp.cbrt so the Pallas megakernel (ops/megakernel.py, which
+    spells it the same way) and the modular path draw the same scatter
+    directions.
     """
     return jnp.exp(jnp.log(jnp.maximum(x, 1e-30)) * (1.0 / 3.0))
 

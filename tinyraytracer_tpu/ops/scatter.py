@@ -1,7 +1,7 @@
 """Branchless material scatter.
 
 The reference dispatches `Material::scatter` through trait objects per hit
-(material/*.rs). On TPU, every ray evaluates all four lobes with vector math
+(material/*.rs). Here every ray evaluates all four lobes with vector math
 and selects by material kind — the classic wavefront formulation. All
 semantics mirror the reference:
 

@@ -14,8 +14,8 @@ wavefront formulation — with semantics matched step for step:
   (exhausting the budget adds NO background term — cpu.rs:47-62)
 
 The scan is reverse-mode differentiable; `jax.checkpoint` on the body keeps
-backward memory at one bounce of residuals (rematerialization trades HBM for
-FLOPs, the right TPU trade).
+backward memory at one bounce of residuals (rematerialization trades device
+memory for FLOPs).
 
 Accumulation over samples (the Imager's mean, renderer/imager.rs:46-51) is a
 `lax.scan` over sample rounds, so peak memory is one ray-wavefront regardless
@@ -35,14 +35,14 @@ from tinyraytracer_tpu.ops import intersect as isect
 from tinyraytracer_tpu.ops.scatter import scatter
 
 # Rematerialization policy for the bounce scan: the detached winner/shadow
-# *selections* (argmin / BVH walk / Pallas kernel — the expensive discrete
+# *selections* (argmin / BVH walk — the expensive discrete
 # part) are saved as per-bounce residuals, so the backward pass recomputes
 # only the cheap differentiable shading chain. Without this, remat re-runs
 # every selection pass a second time under the transpose.
 _SAVE_SELECT = jax.checkpoint_policies.save_only_these_names("select")
 
 # Target wavefront width (rays traced at once) when fusing samples; one
-# wavefront's live state is ~30 (R,) f32 arrays, so 1M rays ~ 120 MB HBM.
+# wavefront's live state is ~30 (R,) f32 arrays, so 1M rays ~ 120 MB.
 _FUSE_RAY_TARGET = 1 << 20
 
 
@@ -58,8 +58,6 @@ def trace(
     exact: bool = False,
     remat: bool = True,
     bvh=None,
-    compact=None,
-    interpret: bool = False,
     nee: bool = False,
     silhouette: bool = False,
     count_alive: bool = False,
@@ -68,18 +66,16 @@ def trace(
 
     `count_alive=True` additionally returns the per-bounce alive ray
     counts (max_bounces,) f32 — the path-length histogram's survival
-    curve, used by the roofline model (utils/sol.py) to compute the mean
-    number of bounce segments actually executed per camera ray.
+    curve, from which mean_executed_bounces computes the mean number of
+    bounce segments actually executed per camera ray.
 
     origins/directions: (R,3) with unit directions; pixel_id: (R,) u32;
     sample_id: scalar u32; background: (3,) f32.
 
-    Intersector selection (all three produce identical hits and gradients):
+    Intersector selection (both produce identical hits and gradients):
       - default: dense all-primitives test (XLA matmuls);
       - `bvh` (ops.bvh.BVHArrays): threaded BVH traversal — fewer
-        intersections for big scenes;
-      - `compact` (ops.intersect_pallas.CompactScene): fused Pallas VMEM
-        kernel — the fast TPU path (`interpret=True` to run it on CPU).
+        intersections for big scenes.
 
     `nee=True` switches diffuse light transport to next-event estimation
     (explicit area sampling of quad lights, emission skipped on the
@@ -97,11 +93,11 @@ def trace(
     """
     r = origins.shape[0]
     background = jnp.asarray(background, jnp.float32)
-    # The scan carry is kept as (R,) *components*: a materialized (R, 3)
-    # f32 buffer lane-pads 3 -> 128 on TPU (42x the bytes), and the carry
-    # is stored to HBM every bounce — and, under remat, re-read by the
-    # backward pass. Components keep every crossing at logical size;
-    # in-body (R, 3) temporaries are free (XLA fuses them away).
+    # The scan carry is kept as (R,) *components*: the carry is stored to
+    # device memory every bounce — and, under remat, re-read by the
+    # backward pass — and components keep every crossing at logical size
+    # without a padded minor dimension; in-body (R, 3) temporaries are
+    # free (XLA fuses them away).
     ones = jnp.ones((r,), jnp.float32)
     zeros = jnp.zeros((r,), jnp.float32)
     init = (
@@ -115,12 +111,6 @@ def trace(
 
     def select(o, d):
         """Detached closest-hit selection: (t_screen, j). j < 0 = miss."""
-        if compact is not None:
-            from tinyraytracer_tpu.ops.intersect_pallas import (
-                closest_hit_pallas,
-            )
-
-            return closest_hit_pallas(compact, o, d, interpret=interpret)
         if bvh is not None:
             from tinyraytracer_tpu.ops.bvh import traverse
 
@@ -136,7 +126,7 @@ def trace(
         color = jnp.stack([c_r, c_g, c_b], axis=-1)
         # Selection is detached and saved as a remat residual ("select"):
         # the backward pass reconstructs the record from the saved winner
-        # instead of re-running the argmin / BVH walk / Pallas kernel.
+        # instead of re-running the argmin / BVH walk.
         t_sel, j = checkpoint_name(select(o, d), "select")
         if silhouette:
             throughput = throughput * _silhouette_factor(
@@ -217,7 +207,7 @@ def _silhouette_factor(scene, o, d, t_sel, j, alive):
     The pathwise estimator's radiance is constant w.r.t. WHICH primitive a
     ray hits — geometry only moves the discontinuity boundary, so image
     gradients w.r.t. primitive positions are zero a.e. and large position
-    offsets never recover (VERDICT r1 §Missing 3). Both primitive classes
+    offsets never recover. Both primitive classes
     have analytic silhouettes, so the boundary term has a cheap surrogate:
     treat each ray×primitive visibility event as a Bernoulli with a *soft*
     probability.
@@ -255,9 +245,8 @@ def _silhouette_factor(scene, o, d, t_sel, j, alive):
     d = sg(d)
     t_sel = sg(t_sel)
     ns = scene.sph_center.shape[0]
-    # (Ns, R) orientation throughout: Ns rides the (padded-to-8) sublane
-    # axis and R the lane axis, so every materialized intermediate is
-    # dense. The (R, Ns) orientation would lane-pad Ns -> 128 (~16x bytes).
+    # (Ns, R) orientation throughout: R is the minor axis, so every
+    # materialized intermediate is dense even when Ns is small.
     cx = scene.sph_center[:, 0:1]                          # (Ns,1) attached
     cy = scene.sph_center[:, 1:2]
     cz = scene.sph_center[:, 2:3]
@@ -291,8 +280,7 @@ def _silhouette_factor(scene, o, d, t_sel, j, alive):
     p = jnp.where(is_sph_winner, cov, 1.0 - cov)
     p = jnp.where(scene.sph_valid[:, None] & alive[None, :], p, 1.0)
     # Clamp p BEFORE forming the ratio so numerator and denominator always
-    # match: the forward value is exactly 1 (parity with the fused kernel,
-    # which hardcodes it — ops/diffkernel.py) and only the gradient flows.
+    # match: the forward value is exactly 1 and only the gradient flows.
     # Clamping just the denominator would darken the forward render
     # whenever p < 1e-3 (e.g. a segment originating deep inside a sphere).
     p = jnp.maximum(p, 1e-3)
@@ -375,7 +363,7 @@ def _nee_contribution(
     )                                                      # (R,)
     cum = jnp.cumsum(light_mask.astype(jnp.int32)) - 1     # (Nq,) 0-based
     # il[r] = first quad index whose cumulative count equals k[r]; the
-    # (Nq, R) orientation keeps the compare matrix lane-dense, and the
+    # (Nq, R) orientation keeps R the compare matrix's minor axis, and the
     # discrete choice is saved as a remat residual like the selections.
     eq = (cum[:, None] == k[None, :]) & light_mask[:, None]
     il = checkpoint_name(jnp.argmax(eq, axis=0), "select")  # (R,)
@@ -416,7 +404,7 @@ def _nee_contribution(
     # exactly the hard V; backward sees d(log V_soft)/d(center, radius)).
     # This is the practical stand-in for true silhouette edge sampling
     # (SURVEY.md §7 "edge-aware estimator").
-    # (Ns, R) orientation: dense lanes (see _silhouette_factor).
+    # (Ns, R) orientation: R minor (see _silhouette_factor).
     scx = scene.sph_center[:, 0:1]                          # (Ns,1)
     scy = scene.sph_center[:, 1:2]
     scz = scene.sph_center[:, 2:3]
@@ -512,8 +500,6 @@ def render_pixels(
     exact: bool = False,
     spp_offset=0,
     bvh=None,
-    compact=None,
-    interpret: bool = False,
     nee: bool = False,
     silhouette: bool = False,
     fuse_spp: bool = False,
@@ -522,7 +508,7 @@ def render_pixels(
 
     This is the fusion of the reference's three pipeline stages
     (pointgen -> sampler -> imager, renderer/renderer.rs:62-78) into one
-    compiled program: generation, tracing, and accumulation never leave HBM.
+    compiled program: generation, tracing and accumulation are one program.
     `pixel_id` may be any subset/shard of the image — the sharding unit.
     """
     background = jnp.asarray(background, jnp.float32)
@@ -558,8 +544,7 @@ def render_pixels(
         o, d = generate_rays(camera, pid, sid, seed)
         c = trace(
             scene, o, d, pid, sid, seed, max_bounces, background,
-            exact=exact, bvh=bvh, compact=compact, interpret=interpret,
-            nee=nee, silhouette=silhouette,
+            exact=exact, bvh=bvh, nee=nee, silhouette=silhouette,
         )
         if chunk > 1:
             c = c.reshape(chunk, npix, 3).sum(axis=0)
@@ -577,9 +562,7 @@ def render_pixels(
 
 @partial(
     jax.jit,
-    static_argnames=(
-        "spp", "max_bounces", "exact", "interpret", "nee", "silhouette"
-    ),
+    static_argnames=("spp", "max_bounces", "exact", "nee", "silhouette"),
 )
 def render_image(
     scene: SceneArrays,
@@ -591,8 +574,6 @@ def render_image(
     seed=0,
     exact: bool = False,
     bvh=None,
-    compact=None,
-    interpret: bool = False,
     nee: bool = False,
     silhouette: bool = False,
 ) -> jax.Array:
@@ -609,9 +590,32 @@ def render_image(
         seed=seed,
         exact=exact,
         bvh=bvh,
-        compact=compact,
-        interpret=interpret,
         nee=nee,
         silhouette=silhouette,
     )
     return img.reshape(h, w, 3)
+
+
+def mean_executed_bounces(scene, camera, *, max_bounces: int, background,
+                          spp: int = 2, seed: int = 0) -> float:
+    """Empirical mean bounce segments per camera ray for this scene.
+
+    Traces a low-spp wavefront (count_alive=True) and integrates the
+    survival curve: executed segments = 1 (the guaranteed first bounce) +
+    sum_b alive_after(b). The path-length distribution is camera/scene
+    geometry, independent of resolution to first order and of the device,
+    so a cheap low-spp estimate serves any render size of the same scene.
+    """
+    npix = camera.width * camera.height
+    alive_total = 0.0
+    for s in range(spp):
+        pid = jnp.arange(npix, dtype=jnp.uint32)
+        o, d = generate_rays(camera, pid, jnp.uint32(s), jnp.uint32(seed))
+        _, alive_counts = trace(
+            scene, o, d, pid, jnp.uint32(s), jnp.uint32(seed),
+            max_bounces=max_bounces, background=jnp.asarray(background),
+            count_alive=True,
+        )
+        # alive_after(max_bounces-1) rays execute no further segment.
+        alive_total += float(jnp.sum(alive_counts[:-1]))
+    return 1.0 + alive_total / (npix * spp)

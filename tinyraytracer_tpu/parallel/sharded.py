@@ -2,13 +2,13 @@
 
 The reference's only parallelism is worker tasks over shared channels
 (sampler/cpu.rs:76-83) and 10,240-ray GPU batches (metal/sampler.rs:11).
-The TPU-native formulation (SURVEY.md §2 parallelism table, §7 phase 9):
+This formulation (SURVEY.md §2 parallelism table, §7 phase 9):
 
   - "tile" axis: the flat pixel grid is sharded across devices — data
     parallelism over rays, the analog of the reference's worker fan-out,
     except the partition is static so no work-stealing channel is needed;
   - "sample" axis: samples-per-pixel are split across devices and the
-    partial framebuffers combined with a `pmean` over ICI — the analog of
+    partial framebuffers combined with a `pmean` across devices — the analog of
     the Imager's accumulation (renderer/imager.rs:46-51), except it is a
     single XLA collective instead of a consumer task.
 
@@ -16,12 +16,13 @@ Scene and camera are replicated (scenes are KBs; rays are the big tensor).
 The per-ray counter RNG keys on (seed, pixel_id, global sample_id), so every
 sample's radiance is bitwise placement-invariant; the final pixel differs
 across mesh shapes only by f32 summation order in the sample reduction
-(tile-only meshes are bitwise equal to single-chip; sample-split meshes are
+(tile-only meshes are bitwise equal to one device; sample-split meshes are
 within 1 ulp). This is the SURVEY.md §7 "multi-host determinism" gate.
 
-For multi-host pods, call `jax.distributed.initialize()` first; everything
+For several hosts, call `jax.distributed.initialize()` first; everything
 here is expressed over the global mesh, and XLA routes the sample-axis
-`pmean` over ICI within a slice / DCN across slices.
+`pmean` over the devices' interconnect (NVLink within a host, the network
+across hosts).
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ The reference's only instrumentation is an `indicatif` progress bar
 (renderer/imager.rs:52-57); there are no traces, timelines, or
 throughput counters anywhere (SURVEY.md §5). Here every render path is a
 jitted XLA program, so the native tool is the JAX/XLA profiler: one
-context manager wraps any region in a trace that captures the TPU
-timeline (kernel launches, Mosaic kernels, HBM transfers, host gaps),
+context manager wraps any region in a trace that captures the device
+timeline (kernel launches, Pallas kernels, memory transfers, host gaps),
 viewable with TensorBoard's profile plugin or Perfetto (the trace is a
 standard `.xplane.pb` under `<dir>/plugins/profile/...`).
 
